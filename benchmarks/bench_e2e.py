@@ -7,8 +7,9 @@ exact host finalization — per BENCH_QUERIES entry, in fact-table rows/s:
          chunk cache, and jit compiles)
   warm : steady state with device-resident chunks (tcache hits)
 
-Each query runs in a FRESH subprocess (BASELINE.md "TPU environment hazard":
-one pathological compile poisons a process).
+Each query runs in its own child process, one after another, and this
+parent never imports JAX: a JAX process reserves most of the card's memory,
+so one process at a time uses the card.  Needs a GPU.
 
 Usage:
     python benchmarks/bench_e2e.py            # all queries, one line each
@@ -31,12 +32,13 @@ QUERIES = ("filter", "agg_nogrp", "agg_group", "join_agg", "star_group",
 def run_one(name: str) -> dict:
     import jax
     import pg_strom_tpu  # noqa: F401
+    from benchmarks.peaks import require_gpu
     from pg_strom_tpu.datastore import Database
     from pg_strom_tpu.models.testdb import build_testdb, BENCH_QUERIES
     from pg_strom_tpu.sql import execute
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    fact = (1 << 22) if on_tpu else (1 << 18)
+    dev = require_gpu()
+    fact = 1 << 22
 
     db = Database()
     t0 = time.perf_counter()
@@ -48,58 +50,33 @@ def run_one(name: str) -> dict:
     first = execute(sql, db).formatted(-3)
     cold_s = time.perf_counter() - t0
 
-    best = float("inf")
+    times = []
     for _ in range(5):
         t0 = time.perf_counter()
         out = execute(sql, db).formatted(-3)
-        best = min(best, time.perf_counter() - t0)
-    assert out == first, f"warm result drifted for {name}"
+        times.append(time.perf_counter() - t0)
+        if out != first:
+            raise RuntimeError(f"warm result drifted for {name}")
+    warm = sorted(times)[len(times) // 2]
 
-    return {"query": name, "fact_rows": fact, "fixture_s": round(build_s, 2),
-            "cold_s": round(cold_s, 3), "warm_s": round(best, 4),
-            "warm_rows_per_s": round(fact / best),
-            "rows_out": len(first)}
+    return {"query": name, "fact_rows": fact, "fixture_s": build_s,
+            "cold_s": cold_s, "warm_s": warm, "warm_runs_s": times,
+            "warm_rows_per_s": fact / warm, "rows_out": len(first),
+            "device": {"platform": dev.platform, "kind": dev.device_kind,
+                       "count": len(jax.devices())}}
 
 
 def main() -> None:
-    here = os.path.dirname(os.path.abspath(__file__))
-    if len(sys.argv) > 1 and sys.argv[1] == "--merge":
-        # merge one-query JSON lines (run under a driver with a per-call
-        # time budget) into the artifact, replacing rows by query name
-        with open(os.path.join(here, "BENCH_E2E.json")) as f:
-            cur = {r["query"]: r for r in json.load(f).get("results", [])}
-        for line in sys.stdin:
-            line = line.strip()
-            if line.startswith("{"):
-                r = json.loads(line)
-                cur[r["query"]] = r
-        results = [cur[q] for q in QUERIES if q in cur]
-        with open(os.path.join(here, "BENCH_E2E.json"), "w") as f:
-            json.dump({"results": results}, f, indent=1)
-        print(f"merged -> {len(results)} queries")
-        return
     if len(sys.argv) > 1:
         print(json.dumps(run_one(sys.argv[1])))
         return
-    env = dict(os.environ)
-    results = []
     for q in QUERIES:
         p = subprocess.run([sys.executable, os.path.abspath(__file__), q],
-                           capture_output=True, text=True, env=env,
-                           timeout=1800)
-        line = (p.stdout.strip().splitlines() or ["{}"])[-1]
+                           capture_output=True, text=True, timeout=1800)
         if p.returncode != 0:
             print(f"# {q}: FAILED\n{p.stderr[-2000:]}", file=sys.stderr)
             continue
-        r = json.loads(line)
-        results.append(r)
-        print(f"e2e {q:10s} warm {r['warm_rows_per_s']/1e9:7.2f} Grows/s  "
-              f"(cold {r['cold_s']:.2f}s, warm {r['warm_s']*1e3:.1f}ms, "
-              f"fact {r['fact_rows']})")
-    # artifact consumed by bench.py's consolidated record (round-4 verdict
-    # item 10: per-op + e2e + first-result split in ONE artifact)
-    with open(os.path.join(here, "BENCH_E2E.json"), "w") as f:
-        json.dump({"results": results}, f, indent=1)
+        print(p.stdout.strip().splitlines()[-1], flush=True)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Error model.
 
-TPU-native analog of the reference's StromError_* codes (opencl_common.h:106-123)
+Analog of the reference's StromError_* codes (opencl_common.h:106-123)
 and the per-row error writeback (`kern_writeback_error_status`,
-opencl_common.h:1481-1527).  On TPU we carry a per-row uint8 error lane through
+opencl_common.h:1481-1527).  On the device we carry a per-row uint8 error lane through
 every lowered expression; the chunk-level error is the max over rows (errors are
 priority-ordered so max() == "most severe", mirroring STROM_SET_ERROR's
 priority rule, opencl_common.h:132-144).
@@ -40,8 +40,8 @@ _MESSAGES = {
     ERR_FLOAT_OVERFLOW: "value out of range: overflow",
     ERR_FLOAT_UNDERFLOW: "value out of range: underflow",
     ERR_NUMERIC_OVERFLOW: "numeric field overflow",
-    ERR_SANITY_CHECK: "sanity check violation on TPU device",
-    ERR_DATA_CORRUPTION: "data store corrupted on TPU device",
+    ERR_SANITY_CHECK: "sanity check violation on device",
+    ERR_DATA_CORRUPTION: "data store corrupted on device",
 }
 
 
@@ -64,7 +64,7 @@ class InternalError(Exception):
 
 
 def error_message(code: int) -> str:
-    return _MESSAGES.get(code, f"TPU device error {code}")
+    return _MESSAGES.get(code, f"device error {code}")
 
 
 def raise_for_code(code: int) -> None:

@@ -1,6 +1,6 @@
 """N-way fused star join -> aggregate executor.
 
-The multi-relation device join chain (VERDICT round-1 item 4; reference
+The multi-relation device join chain (reference
 gpuhashjoin.c:789-835 multi-rel path merge + 1184-1318 probe recursion +
 bulkslot hand-off pg_strom.h:317-329): a fact table joined to 2+ dimension
 tables feeding aggregation runs as ONE device program per fact chunk — no
@@ -32,8 +32,7 @@ from ..expr.ir import Expr, ColumnRef, referenced_columns, bind_columns
 from ..expr.catalog import device_expression_supported
 from ..expr.eval_cpu import eval_expr_cpu
 from ..expr.lower_jax import ColMeta, schema_from_chunk_columns
-from ..ops.hashjoin import build_hash_table, dense_cap_for, \
-    mxu_dense_window, _next_pow2
+from ..ops.hashjoin import build_hash_table, dense_cap_for, _next_pow2
 from ..ops.starjoin import build_star_join_preagg_fn
 from ..ops.preagg import AggInstance, merge_partials
 from ..ops.preagg_mxu import mxu_keys_supported, mxu_dense_supported, \
@@ -187,9 +186,8 @@ class StarJoinAggExecutor:
             bkeys = [bind_columns(k, blayout0) for k in d.build_keys]
             bpred = bind_columns(d.build_pred, blayout0) \
                 if d.build_pred is not None else None
-            row_bits = max(d.table.nrows, 1).bit_length()
             ht_key = ("join_ht", tuple(c.uid for c in bcols_all),
-                      tuple(bkeys), bpred, bcap, row_bits)
+                      tuple(bkeys), bpred, bcap)
             ht = TCACHE.get_aux(ht_key, pm)
             bcc = None
             for c in TCACHE.chunks_for(d.table, bnames, bcap, pm):
@@ -201,10 +199,9 @@ class StarJoinAggExecutor:
                 build_fn = _cached_jit(
                     ("build",
                      tuple((m.name, m.type, m.dict_id) for m in bschema),
-                     tuple(bkeys), bpred, bcap, row_bits),
-                    lambda bschema=bschema, bkeys=bkeys, bpred=bpred, \
-                        row_bits=row_bits: build_hash_table(
-                            bschema, bkeys, bpred, row_bits=row_bits))
+                     tuple(bkeys), bpred, bcap),
+                    lambda bschema=bschema, bkeys=bkeys, bpred=bpred:
+                        build_hash_table(bschema, bkeys, bpred))
                 with pm.timer("build_hash"):
                     ht = build_fn(bcc.planes, np.int32(bcc.nrows))
                 if int(ht["err"]) != 0:
@@ -236,14 +233,9 @@ class StarJoinAggExecutor:
                     and d.build_keys[0].type not in (T.NUMERIC, T.FLOAT4,
                                                      T.FLOAT8)):
                 use_ident = bool(ht.get("dense_ident", False))
-                use_mxu = (not use_ident and config.join_mxu_lookup
-                           and bool(ht.get("dense_m_ok", False)))
-                dcap = (mxu_dense_window(bcap) if use_mxu
-                        else dense_cap_for(bcap))
                 dim_specs.append({"mode": "dense", "probe_keys": pkeys,
-                                  "dense_cap": dcap, "use_mxu": use_mxu,
+                                  "dense_cap": dense_cap_for(bcap),
                                   "use_ident": use_ident,
-                                  "row_bits": row_bits,
                                   "key_source": src,
                                   "src_schema": src_schema})
             else:
@@ -387,8 +379,15 @@ class StarJoinAggExecutor:
         n = self.probe.nrows
         shard_n = _next_pow2(max(-(-n // ndev), 1024))
         Npad = shard_n * ndev
-        if Npad * len(pnames) > (1 << 28):
-            return None                  # keep virtual-mesh memory sane
+        # the sharded fact planes are kept in the table cache (put_aux
+        # below), so they are held to its budget, pg_strom.tcache_size_mb;
+        # past it the star runs on one device, streaming its chunks
+        from .devcache import TCACHE
+        pcols = [self.probe.columns[nm] for nm in pnames]
+        row_bytes = sum(p.dtype.itemsize for c in pcols
+                        for p in planes_of_column(c))
+        if Npad * row_bytes > TCACHE.budget_bytes():
+            return None
 
         specs = [dict(s) for s in self._dim_specs]
         spec_sig = _spec_sig(specs)
@@ -400,14 +399,12 @@ class StarJoinAggExecutor:
                tuple(bound_groups), tuple(bound_aggs),
                self._G, self._strategy, shard_n, ndev, axes)
         step = self._DIST_STEP_CACHE.get(key)
-        # resident sharded fact planes (round-4 verdict Missing #3): the
-        # padded planes are a pure function of (fact column versions,
-        # layout, pad size, mesh axes) — shard them over the mesh ONCE and
-        # reuse via the tcache aux space; a repeated distributed-star
-        # query re-ships zero bytes (the _resident_args discipline)
+        # resident sharded fact planes: the padded planes are a pure
+        # function of (fact column versions, layout, pad size, mesh axes)
+        # — shard them over the mesh ONCE and reuse via the tcache aux
+        # space; a repeated distributed-star query re-ships zero bytes
+        # (the _resident_args discipline)
         from jax.sharding import NamedSharding
-        from .devcache import TCACHE
-        pcols = [self.probe.columns[nm] for nm in pnames]
         rkey = ("dist_star_args", tuple(c.uid for c in pcols),
                 tuple(pnames), Npad, axes)
         cached = TCACHE.get_aux(rkey, pm)

@@ -3,8 +3,8 @@ JAX lowering.
 
 This package replaces the reference's runtime OpenCL-C code generator
 (codegen.c, 1794 LoC).  Where the reference emits C source strings and
-compiles them per plan (opencl_devprog.c program cache), the TPU-native
-design *traces* the same typed expression tree into a jitted XLA program —
+compiles them per plan (opencl_devprog.c program cache), this design
+*traces* the same typed expression tree into a jitted XLA program —
 jax's compilation cache is the devprog cache analog, and NULL propagation /
 per-row error lanes replace the generated pg_<t>_t wrappers
 (codegen.c:632-861).

@@ -158,7 +158,7 @@ _reg("-", (T.DATE, T.INT4), T.DATE, ("date_mi_int",), ops.date_mi_int)
 _reg("-", (T.DATE, T.DATE), T.INT4, ("date_mi_date",), ops.date_mi_date)
 # timestamp -> time-of-day and date + time -> timestamp (reference
 # opencl_timelib.h:261 pgfn_timestamp_time, :382 pgfn_datetime_pl — the two
-# catalog gaps VERDICT round 1 flagged)
+# catalog gaps an early review flagged)
 _reg("cast::time", (T.TIMESTAMP,), T.TIME, ("cast", T.TIMESTAMP, T.TIME),
      ops.timestamp_to_time)
 _reg("+", (T.DATE, T.TIME), T.TIMESTAMP, ("date_pl_time",),
@@ -323,7 +323,7 @@ def _promotable(src: T, dst: T) -> bool:
 
 
 def device_expression_supported(e) -> bool:
-    """True when the whole expression tree lowers to the TPU path — the
+    """True when the whole expression tree lowers to the device path — the
     pgstrom_codegen_available_expression analog (codegen.c:1631)."""
     from .ir import (Expr, Const, ColumnRef, Param, FuncExpr, BoolExpr,
                      NullTest, BooleanTest, CaseExpr, CoalesceExpr, Aggref)

@@ -7,8 +7,7 @@ date).  Sizes are parameters; the reference defaults are 20M fact rows and
 40k rows per dimension.
 
 Also defines the benchmark query set used by benchmarks/ and bench.py:
-filter / join / grouped aggregate / sort, matching the BASELINE.json
-operator configs.
+filter / join / grouped aggregate / sort.
 """
 
 from __future__ import annotations
@@ -82,7 +81,7 @@ def build_testdb(db: Database, fact_rows: int = 1_000_000,
     }))
 
 
-# the benchmark query set (BASELINE.json configs)
+# the benchmark query set
 BENCH_QUERIES = {
     "filter": "select count(*), sum(x) from t0 where x < 25.0 and y > 10.0",
     "agg_nogrp": "select count(*), sum(x), avg(y) from t0",

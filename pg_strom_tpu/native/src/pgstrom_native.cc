@@ -1,6 +1,6 @@
 // pg_strom_tpu native host runtime.
 //
-// The TPU-native equivalents of the reference's native host components:
+// The equivalents of the reference's native host components:
 //
 //   arena        — buddy allocator over an mmap'd segment with guard magics,
 //                  redzones and introspection (shmem.c:94-410,1020-1252 analog)

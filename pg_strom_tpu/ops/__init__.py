@@ -1,4 +1,4 @@
-"""Device operators: the TPU-native kernel library.
+"""Device operators: the engine's kernel library (plain JAX/XLA).
 
 Replaces the reference's OpenCL kernel headers:
   opencl_gpuscan.h    -> ops/filter.py   (predicate eval + compaction)

@@ -2,7 +2,7 @@
 
 The GpuScan kernel analog (reference opencl_gpuscan.h:98-177): 1 work-item
 per row evaluates the generated qual, then passing row indexes are compacted
-via `arithmetic_stairlike_add` prefix-sum + an atomic base counter.  On TPU
+via `arithmetic_stairlike_add` prefix-sum + an atomic base counter.  Here
 the same compaction is a vectorized cumsum + scatter over the whole chunk —
 no atomics, no workgroups:
 
@@ -47,14 +47,11 @@ def bitpack_mask(mask: jnp.ndarray) -> jnp.ndarray:
     """bool[n] -> uint8[ceil(n/8 to 128)] TILED bitmask (n padded to 1024).
 
     Pure elementwise + tiny reduce — replaces the cumsum+scatter compaction
-    (a TPU scatter costs ~150ms per 16M rows; this runs at streaming speed)
     and shrinks the device->host result 32x vs padded int32 row ids.
 
     Tiled bit order: bit b of byte [j, l] (flattened j*128 + l) holds row
-    (j*8 + b)*128 + l — the pack reduces along the 8-wide SUBLANE axis of a
-    (J, 8, 128) view, the natural TPU layout.  A row-major pack would reduce
-    along an 8-wide LANE axis, which pads 8 -> 128 lanes (16x the work and a
-    relayout).  unpack_maskbits() is the matching host decoder."""
+    (j*8 + b)*128 + l — the pack reduces along the middle axis of a
+    (J, 8, 128) view.  unpack_maskbits() is the matching host decoder."""
     n = mask.shape[0]
     pad = (-n) % 1024
     if pad:

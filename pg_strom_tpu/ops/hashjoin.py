@@ -3,7 +3,7 @@
 The GpuHashJoin/MultiHash analog (reference gpuhashjoin.c 5073 LoC +
 opencl_hashjoin.h).  Architecture mapping:
 
-  reference                                  TPU-native
+  reference                                  here
   -----------------------------------        ----------------------------------
   host-side CRC32 chained-bucket build       device sorted-bucket build: sort
   (multihash_preload_khashtable,             build rows by bucket id, bucket
@@ -37,8 +37,6 @@ from ..errors import ERR_CPU_RECHECK
 from ..expr.ir import Expr
 from ..expr.lower_jax import Lowerer, DVal, ColMeta
 from .hashing import hash_column32, combine_hashes32
-from .mxu_lookup import MAX_D as MXU_MAX_D, _HPAD as _MXU_HPAD_MIN, LANE, \
-    encode_table_jax, lookup_digits, mxu_lookup
 
 
 def _next_pow2(n: int) -> int:
@@ -60,9 +58,9 @@ class HashTable:
 
 
 # single-int-key PK joins (the dim-join shape) get a direct-address table:
-# probe costs ONE gather instead of ~16 random-access passes (measured 150ms
-# vs 2.9s per 16M-row chunk, tools/bench_gather.py).  Types with an integer
-# data lane whose value IS the join identity:
+# the probe costs ONE gather instead of a bounded bucket-chain walk of up to
+# join_max_bucket_probe random-access passes.  Types with an integer data
+# lane whose value IS the join identity:
 _DENSE_KEY_TYPES = {T.INT2, T.INT4, T.INT8, T.DATE, T.TIME, T.TIMESTAMP,
                     T.BOOL}
 
@@ -73,16 +71,8 @@ def dense_cap_for(build_cap: int) -> int:
     return _next_pow2(max(4 * build_cap, 1024))
 
 
-def mxu_dense_window(build_cap: int) -> int:
-    """Static window of the MXU digit-matrix lookup table (tighter than
-    dense_cap_for when that exceeds the kernel's budget; ht['dense_m_ok']
-    certifies at runtime that live keys fit it)."""
-    return min(dense_cap_for(build_cap), MXU_MAX_D)
-
-
 def build_hash_table(schema: Sequence[ColMeta], key_exprs: Sequence[Expr],
-                     pred: Optional[Expr] = None,
-                     row_bits: Optional[int] = None) -> Callable:
+                     pred: Optional[Expr] = None) -> Callable:
     """Build-side kernel: f(cols, nrows) -> pytree of table arrays.
 
     Rows with NULL in any join key never match (SQL equi-join semantics), so
@@ -91,12 +81,7 @@ def build_hash_table(schema: Sequence[ColMeta], key_exprs: Sequence[Expr],
     Besides the sorted-bucket table, emits a direct-address `dense` lookup
     (key - kmin -> build row, -1 empty) with `dense_ok` true when the build
     side has ONE integer key whose live values fit the static window with no
-    duplicates — the executor then probes with the one-gather kernel.
-
-    row_bits: static bit width of live build-row ids (executor passes
-    bit_length(build.nrows) — live ids < nrows, so the MXU digit matrix
-    needs fewer 8-bit digit blocks than the padded capacity implies; e.g.
-    a 40960-row dim gets K=2 instead of K=3).  Must match the probe's."""
+    duplicates — the executor then probes with the one-gather kernel."""
     key_exprs = list(key_exprs)
 
     def f(cols: tuple, nrows):
@@ -151,43 +136,21 @@ def build_hash_table(schema: Sequence[ColMeta], key_exprs: Sequence[Expr],
             # EVERY build row (the serial-PK dim-table shape — reference
             # testdb.sql t1..t5, and star schemas generally).  Then
             # slot == build row and occupied slots are exactly [0, nbuild):
-            # the probe needs NO table access at all — pure lane arithmetic
-            # at HBM speed instead of the D-proportional MXU one-hot lookup.
+            # the probe needs NO table access at all — pure lane arithmetic.
             live_rows = jnp.arange(n, dtype=jnp.int32) < nrows
             dense_ident = (dense_ok
                            & jnp.all(allvalid == live_rows)
                            & jnp.all(jnp.where(live_rows,
                                                off == rows.astype(jnp.int64),
                                                True)))
-            # MXU digit-matrix view (ops/mxu_lookup.py): the probe replaces
-            # its one XLA gather (~150ms/16M rows — no hardware vector-gather
-            # on TPU) with a one-hot MXU contraction (~10-20ms).  Lookup cost
-            # scales with the window, so the matrix covers a TIGHTER static
-            # window D_m <= MXU_MAX_D than the 4x-slack dense table;
-            # dense_m_ok certifies at runtime that every live key fits it.
-            # Sentinel n ("empty slot") rides in the table itself.
-            D_m = min(dcap, MXU_MAX_D)
-            if D_m == dcap:
-                dense_m_ok = dense_ok
-            else:
-                dense_m_ok = dense_ok & jnp.all(
-                    jnp.where(allvalid, off < D_m, True))
-            rb = row_bits if row_bits is not None else max(n, 1).bit_length()
-            sent = (1 << rb) - 1        # > any live row id by construction
-            vals = jnp.where(dense[:D_m] >= 0, dense[:D_m], jnp.int32(sent))
-            K = lookup_digits(rb)
-            dense_M = encode_table_jax(vals, D_m, K, pad_value=sent)
         else:
             dense = jnp.full(1, -1, jnp.int32)
             kmin = jnp.int64(0)
             dense_ok = jnp.bool_(False)
-            dense_m_ok = jnp.bool_(False)
             dense_ident = jnp.bool_(False)
-            dense_M = jnp.zeros((LANE, _MXU_HPAD_MIN), jnp.bfloat16)
         return {"bucket_start": bucket_start, "order": order,
                 "key_planes": tuple(key_planes),
                 "dense": dense, "kmin": kmin, "dense_ok": dense_ok,
-                "dense_M": dense_M, "dense_m_ok": dense_m_ok,
                 "dense_ident": dense_ident,
                 "nbuild": jnp.sum(allvalid.astype(jnp.int32)),
                 "err": jnp.max(jnp.where(live, lw.err, jnp.uint8(0)))}
@@ -197,8 +160,6 @@ def build_hash_table(schema: Sequence[ColMeta], key_exprs: Sequence[Expr],
 
 def build_probe_dense_fn(schema: Sequence[ColMeta], key_exprs: Sequence[Expr],
                          dense_cap: int, pred: Optional[Expr] = None,
-                         use_mxu: bool = False,
-                         row_bits: Optional[int] = None,
                          use_ident: bool = False) -> Callable:
     """One-gather probe against a direct-address build table:
        f(ht, cols, nrows) -> (matched bool[n], build_row int32[n], nout, err).
@@ -206,12 +167,11 @@ def build_probe_dense_fn(schema: Sequence[ColMeta], key_exprs: Sequence[Expr],
     Output stays ROW-ALIGNED (no compaction pass): at most one match per
     probe row by construction (dense_ok => unique build keys), so the
     executor materializes pairs with a host flatnonzero.  Replaces the
-    two-phase chained probe's ~16 random-access passes with one.
+    two-phase chained probe's bucket walk with one gather from the
+    direct-address table (int32[dense_cap]).
 
-    use_mxu (executor sets it when ht['dense_m_ok'] held): dense_cap is the
-    tighter mxu_dense_window and the slot lookup rides the MXU one-hot
-    contraction instead of an XLA gather (no hardware vector-gather on TPU:
-    a gather costs ~150ms/16M rows regardless of table size)."""
+    use_ident (executor sets it when ht['dense_ident'] held): the slot IS
+    the build row, so the probe reads no table at all."""
     key_exprs = list(key_exprs)
 
     def f(ht: dict, cols: tuple, nrows):
@@ -228,18 +188,9 @@ def build_probe_dense_fn(schema: Sequence[ColMeta], key_exprs: Sequence[Expr],
         slot = jnp.clip(off, 0, dense_cap - 1).astype(jnp.int32)
         if use_ident:
             # identity build (ht['dense_ident']): slot IS the build row and
-            # occupied slots are exactly [0, nbuild) — no table access,
-            # HBM-bound lane arithmetic (vs the D-proportional MXU lookup)
+            # occupied slots are exactly [0, nbuild) — no table access
             br = slot
             matched = in_r & (off < ht["nbuild"].astype(jnp.int64))
-        elif use_mxu:                  # MXU one-hot lookup, no gather
-            nb = ht["order"].shape[0]
-            rb = row_bits if row_bits is not None \
-                else max(nb, 1).bit_length()
-            sent = (1 << rb) - 1       # must match build_hash_table's
-            K = lookup_digits(rb)
-            br = mxu_lookup(slot, ht["dense_M"], dense_cap, K, n)
-            matched = in_r & (br != jnp.int32(sent))
         else:
             br = ht["dense"][slot]
             matched = in_r & (br >= 0)

@@ -25,7 +25,6 @@ from ..sqltypes import T
 from ..expr.ir import Expr, ColumnRef
 from ..expr.lower_jax import ColMeta, Lowerer
 from .hashjoin import build_probe_fn, build_probe_dense_fn
-from .mxu_lookup import mxu_lookup
 from .preagg import AggInstance, build_preagg_fn
 
 
@@ -40,9 +39,7 @@ def build_join_preagg_fn(pschema: Sequence[ColMeta],
                          group_exprs: Sequence[Expr],
                          aggs: Sequence[AggInstance],
                          G: int, strategy: str = "scatter",
-                         dense: bool = False, dense_cap: int = 0,
-                         dense_mxu: bool = False,
-                         dense_row_bits: Optional[int] = None) -> Callable:
+                         dense: bool = False, dense_cap: int = 0) -> Callable:
     """Build f(ht, pcols, bcols, nrows, salt) -> preagg pytree + 'nout'.
 
     jschema describes the joined (projected) layout the group/agg exprs are
@@ -60,9 +57,7 @@ def build_join_preagg_fn(pschema: Sequence[ColMeta],
 
     if dense:
         dprobe_fn = build_probe_dense_fn(pschema, list(probe_keys),
-                                         dense_cap, probe_pred,
-                                         use_mxu=dense_mxu,
-                                         row_bits=dense_row_bits)
+                                         dense_cap, probe_pred)
         jschema_eff = list(jschema) + [ColMeta("__match__", T.BOOL)]
         match_pred = ColumnRef(type=T.BOOL, name="__match__",
                                index=len(jschema))
@@ -130,25 +125,25 @@ def build_join_preagg_pregrouped_fn(
         pschema: Sequence[ColMeta], probe_keys: Sequence[Expr],
         dense_cap: int, probe_pred: Optional[Expr],
         jschema: Sequence[ColMeta], probe_slots: Sequence[int],
-        aggs: Sequence[AggInstance], G: int, seg_K: int,
+        aggs: Sequence[AggInstance], G: int,
         strategy: str = "mxu") -> Callable:
     """Star-schema fused join->aggregate with PRE-ASSIGNED group ids.
 
     When every GROUP BY expression reads only build-side (dimension) columns
     and every aggregate reads only probe-side (fact) columns, the executor
     enumerates the distinct group-key tuples over the small build side ONCE
-    (host, exact — text keys ride free) and encodes a slot -> group-id digit
-    matrix (`ht['seg_M']`, sentinel G for empty slots).  The per-chunk device
-    program is then ONE MXU lookup (probe key -> group id) feeding the
-    grouped preagg — no build-row gather, no build-column gathers, no salt
-    ladder (group ids are dense ints < G-2, the collision-free range
-    bucketing in preagg._bucket_ids).
+    (host, exact — text keys ride free) into a slot -> group-id table
+    (`ht['seg_tab']`, int32[dense_cap], sentinel G for empty slots).  The
+    per-chunk device program is then ONE gather (probe key -> group id)
+    feeding the grouped preagg — no build-row gather, no build-column
+    gathers, no salt ladder (group ids are dense ints < G-2, the
+    collision-free range bucketing in preagg._bucket_ids).
 
     Reference contrast: the reference always materializes the join output
     before GpuPreAgg re-derives groups from key values
     (kern_gpuhashjoin_projection_slot -> gpupreagg_keycomp); pre-resolving
-    dimension groups at build time has no reference counterpart — it exists
-    because TPU gathers are the scarce resource.
+    dimension groups at build time has no reference counterpart — it trades
+    one gather per build column for one gather in total.
 
     f(ht, pcols, nrows, salt) -> preagg pytree (+'nout'=0); group keys in
     the output are the int seg ids, which the executor maps back to the
@@ -175,7 +170,7 @@ def build_join_preagg_pregrouped_fn(
         off = k.data.astype(jnp.int64) - ht["kmin"]
         in_r = mask & k.valid & (off >= 0) & (off < dense_cap)
         slot = jnp.clip(off, 0, dense_cap - 1).astype(jnp.int32)
-        seg = mxu_lookup(slot, ht["seg_M"], dense_cap, seg_K, n)
+        seg = ht["seg_tab"][slot]
         matched = in_r & (seg < jnp.int32(G))
         seg = jnp.where(matched, seg, jnp.int32(0))
         jcols = []

@@ -1,10 +1,10 @@
 """Grouped partial aggregation on device + exact host finalization.
 
-The TPU-native GpuPreAgg (reference: gpupreagg.c 4773 LoC + opencl_gpupreagg.h).
+The GpuPreAgg analog (reference: gpupreagg.c 4773 LoC + opencl_gpupreagg.h).
 Same two-phase architecture as the reference (aggfunc_catalog rewrite into
 NROWS/PSUM/PSUM_X2/PCOV_* partials computed on-device, exact finalization on
 the host — gpupreagg.c:104-333, pg_strom--1.0.sql:229-401), but the device
-algorithm is redesigned for TPU:
+algorithm is redesigned for XLA:
 
   reference: bitonic-sort ladder + keycomp-delimited local reduction
              (opencl_gpupreagg.h:459-860)
@@ -25,7 +25,8 @@ PostgreSQL results):
   sum_num     per-group min-exponent alignment, int64 mantissa sum + shadow;
               rescale overflow => CPU_RECHECK (device numeric window analog
               of opencl_numeric.h)
-  sum_f64     plain f64 (emulated on TPU); floats are tolerance-checked
+  sum_f64     plain f64 segment sum (the CPU route; see preagg_mxu for the
+              order-independent limb route the GPU takes)
   min/max     sentinel-masked segment min/max; numeric via two-pass
               lexicographic (magnitude-class, normalized-mantissa) reduction
               + argmin-row gather so display scale is preserved
@@ -41,6 +42,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from .. import backend
 from ..sqltypes import T, STORAGE_DTYPE
 from ..errors import ERR_CPU_RECHECK
 from .. import pgnumeric as pgn
@@ -290,13 +292,41 @@ class AggInstance:
 def _seg(vals: jnp.ndarray, seg_id, G: int, how: str) -> jnp.ndarray:
     if seg_id is None:
         # ungrouped: ONE group in slot 0 — a direct streaming reduction
-        # (TPU scatters cost ~50ms/pass; jnp reductions run at HBM speed).
+        # instead of a scatter.
         # Dead lanes already carry the reduction identity via masking.
         r = {"sum": jnp.sum, "min": jnp.min, "max": jnp.max}[how](vals)
         return jnp.concatenate([r[None], jnp.zeros((G - 1,), r.dtype)])
+    if (how == "sum" and jnp.issubdtype(vals.dtype, jnp.floating)
+            and not backend.ordered_float_scatter()):
+        return _ordered_segment_sum(vals, seg_id, G)
     f = {"sum": jax.ops.segment_sum, "min": jax.ops.segment_min,
          "max": jax.ops.segment_max}[how]
     return f(vals, seg_id, num_segments=G)
+
+
+def _ordered_segment_sum(vals: jnp.ndarray, seg_id, G: int) -> jnp.ndarray:
+    """Float segment sum whose addition order depends only on the data:
+    rows sorted stably by segment, then a segmented associative scan (a
+    fixed tree of adds), and each segment's last prefix scattered to its
+    slot (one writer per slot).  Ids outside [0, G) are dropped, as in
+    jax.ops.segment_sum."""
+    n = vals.shape[0]
+    if n == 0:
+        return jnp.zeros(G, vals.dtype)
+    order = jnp.argsort(seg_id, stable=True)
+    s = seg_id[order]
+    v = vals[order]
+    edge = s[1:] != s[:-1]
+    start = jnp.concatenate([jnp.ones(1, jnp.bool_), edge])
+    last = jnp.concatenate([edge, jnp.ones(1, jnp.bool_)])
+
+    def add(a, b):
+        (va, fa), (vb, fb) = a, b
+        return jnp.where(fb, vb, va + vb), fa | fb
+
+    csum, _ = jax.lax.associative_scan(add, (v, start))
+    tgt = jnp.where(last & (s >= 0) & (s < G), s, G)
+    return jnp.zeros(G, vals.dtype).at[tgt].set(csum, mode="drop")
 
 
 def _gref(garr: jnp.ndarray, seg_id) -> jnp.ndarray:
@@ -414,8 +444,8 @@ def _slot_compute(kind: str, inst_args: list[DVal], mask: jnp.ndarray,
         x = jnp.where(ok, a.data.astype(jnp.float64), 0.0)
         v = x * x if kind == "sumsq_f" else x
         out = _seg(v, seg_id, G, "sum")
-        # any inf in the partial (or per-row square) means the emulated-f64
-        # range was exceeded — the host replay decides whether PostgreSQL
+        # any inf in the partial (or per-row square) means the f64 range
+        # was exceeded — the host replay decides whether PostgreSQL
         # raises (CHECKFLOATVAL) or the value is representable
         bad = jnp.isinf(out).any() | jnp.isinf(v).any()
         if kind == "sum_f" and a.t is T.FLOAT4:
@@ -550,18 +580,15 @@ def _slot_minmax(kind: str, a: DVal, ok: jnp.ndarray, seg_id: jnp.ndarray,
 def build_preagg_fn(schema: Sequence[ColMeta], group_exprs: Sequence[Expr],
                     aggs: Sequence[AggInstance], pred: Optional[Expr],
                     G: int, strategy: str = "scatter",
-                    v2sig=None) -> Callable:
+                    reduce_route: Optional[str] = None) -> Callable:
     """Build f(cols, nrows, salt) -> chunk partials.
 
-    v2sig (a preagg_fused2.V2Sig from derive_v2_plan): the raw-plane
-    stats-driven kernel replaces the whole lowering+encode+reduce pipeline;
-    the returned f takes a 4th `scal` argument (runtime statistics
-    scalars + i64 split planes) and emits the same mxu output contract.
+    reduce_route: the limb-matrix reduction formulation of the mxu
+    strategies (preagg_mxu.mxu_reduce); None = the backend's choice.
 
     Grouping strategies:
-      scatter — TPU-preferred: hash keys straight into G buckets and
-                segment-reduce in *row order* (no sort, no full-length
-                gathers — TPU gathers are ~50x slower than streaming).
+      scatter — hash keys straight into G buckets and segment-reduce in
+                *row order* (no sort, no full-length gathers).
                 Per-bucket exactness check (segment min==max over every key
                 plane) raises `collision`; the executor re-dispatches with a
                 new salt and falls back to the sort strategy if collisions
@@ -581,10 +608,6 @@ def build_preagg_fn(schema: Sequence[ColMeta], group_exprs: Sequence[Expr],
     """
     group_exprs = list(group_exprs)
     aggs = list(aggs)
-
-    if v2sig is not None:
-        from .preagg_fused2 import build_fused2_fn
-        return build_fused2_fn(schema, group_exprs, aggs, pred, G, v2sig)
 
     def f(cols: tuple, nrows, salt):
         n = cols[0][0].shape[0] if cols else 0
@@ -614,12 +637,12 @@ def build_preagg_fn(schema: Sequence[ColMeta], group_exprs: Sequence[Expr],
 
         collision = jnp.bool_(False)
         if group_exprs and strategy in ("mxu", "mxu_dense"):
-            # MXU grouping: ONE batched one-hot matmul computes every
+            # limb-matrix grouping: ONE grouped reduction computes every
             # additive partial AND the per-bucket key-constancy sums; the
             # host recovers keys / detects collisions in exact big-int
-            # arithmetic (see ops/preagg_mxu.py).  Measured on v5e: 6-12x
-            # faster than scatter at 4-16M rows/chunk.  Non-additive slots
-            # (min/max, numeric, f8) scatter over the same buckets.
+            # arithmetic (see ops/preagg_mxu.py).  Non-additive slots
+            # (min/max, numeric, f8 on the CPU) scatter over the same
+            # buckets.
             #
             # mxu_dense (single int-lane key): bucket = key - min(key), so
             # the bucket INDEX recovers the key — the ~17 key
@@ -654,30 +677,13 @@ def build_preagg_fn(schema: Sequence[ColMeta], group_exprs: Sequence[Expr],
             seg_id, mask = jax.lax.optimization_barrier((seg_id, mask))
             key_ts = [g.type for g in group_exprs]
             arg_ts = [tuple(a.type for a in inst.args) for inst in aggs]
-            fused = None
-            from ..config import config as _cfg
-            if (getattr(_cfg, "use_fused_preagg", True)
-                    and (jax.default_backend() != "cpu"
-                         or getattr(_cfg, "force_fused_preagg_cpu", False))
-                    and G <= 2048):
-                # fused Pallas kernel: limb-matrix build + one-hot matmul in
-                # VMEM (the XLA formulation spends ~80% of chunk time
-                # materializing the limb matrix in HBM — preagg_fused.py)
-                from .preagg_fused import fused_supported, fused_mxu_reduce
-                if fused_supported(key_ts, aggs, arg_ts):
-                    fused = fused_mxu_reduce(keys, aggs, arg_vals, mask,
-                                             seg_id, G, n, key_ts, arg_ts,
+            V, f4exps = build_mxu_columns(keys, aggs, arg_vals, mask, n,
+                                          dense_key=dense_key)
+            _, slotr_static, _ = mxu_recipes(key_ts, aggs, arg_ts,
                                              dense_key=dense_key)
-            if fused is not None:
-                sums, fsums, f4exps = fused
-            else:
-                V, f4exps = build_mxu_columns(keys, aggs, arg_vals, mask, n,
-                                              dense_key=dense_key)
-                # only shadow columns pay the (TPU-emulated) f64 reduction
-                _, slotr_static, _ = mxu_recipes(key_ts, aggs, arg_ts,
-                                                 dense_key=dense_key)
-                sums, fsums = mxu_reduce(
-                    V, seg_id, G, n, fsum_cols=mxu_shadow_cols(slotr_static))
+            sums, fsums = mxu_reduce(
+                V, seg_id, G, n, fsum_cols=mxu_shadow_cols(slotr_static),
+                route=reduce_route)
             row_idx = jnp.arange(n, dtype=jnp.int64)
             slot_out = []
             for inst, vs in zip(aggs, arg_vals):
@@ -701,12 +707,8 @@ def build_preagg_fn(schema: Sequence[ColMeta], group_exprs: Sequence[Expr],
                 out["dense_fail"] = dense_fail
             return out
         if group_exprs and strategy == "scatter":
-            # all-uint32 hashing: u64 chains feeding scatters measured ~1000x
-            # slower on TPU (emulated 64-bit ops in the scatter fusion)
             seg_id = _bucket_ids(keys, mask, salt, G)
-            # keep the hash chain OUT of the scatter fusions: measured on
-            # TPU, fusing the bucket computation into scatter operands
-            # slows segment reductions by orders of magnitude
+            # keep the hash chain out of the scatter fusions
             seg_id, mask = jax.lax.optimization_barrier((seg_id, mask))
             # lanes stay in row order: no sort, no gathers
             mask_s = mask

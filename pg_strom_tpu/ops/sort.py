@@ -2,13 +2,11 @@
 
 The reference kept GpuSort in deadcode (deadcode/gpusort.c: CustomPlan Sort
 replacement with bitonic kernels) but it is part of the capability envelope
-and the BASELINE configs include ORDER BY — here it is first-class.
+and the benchmark includes ORDER BY — here it is first-class.
 
-TPU-native design — single-operand packed sorts.  Variadic `lax.sort`
-(key + payload operands) triggers a pathological minutes-long compile on
-TPU at chunk sizes (a 2-operand i32 sort of 4M rows measured 920 s to
-compile vs 29 s for the same sort with key and row-id packed into one
-int64 — tools/tpu_sort_probe.sh), so every sort here is ONE int64 operand:
+Design — single-operand packed sorts: every sort here is ONE int64 operand
+(a variadic key + payload `lax.sort` compiled far slower on the hardware
+this was first built for, and one operand moves fewer bytes):
 
   wide = (unsigned-comparable key bits << rbits) | row_id
   perm = lax.sort(wide) & (2^rbits - 1)
@@ -193,9 +191,8 @@ def _argsort_adaptive(dead_bit: jnp.ndarray,
     row-id bits fit one 64-bit word, ONE packed lax.sort is the exact
     stable answer (dynamic shift amounts are ordinary XLA ops).  Multi-key
     ORDER BY over real data (ids, categories, dates, dictionary codes)
-    almost always fits — removing the per-pass composition gathers that
-    made 2-key sorts ~8x slower than single-key (BASELINE.md: 31 vs 258
-    Mrows/s; TPU gathers are ~150ms/16M rows).
+    almost always fits — removing the per-pass composition gathers of the
+    static multi-pass path.
 
     fits=False => perm is meaningless; the CALLER re-dispatches the static
     LSD program (packed_argsort) — the engine's standard host-driven retry
@@ -238,8 +235,7 @@ def _argsort_adaptive2(dead_bit: jnp.ndarray,
     Same runtime range reduction as _argsort_adaptive, but the reduced keys
     pack into TWO 64-bit words sorted lexicographically by ONE variadic
     lax.sort (num_keys=2) — the wide-key tier between the single-word fast
-    path and the static LSD passes, with NO per-pass composition gathers
-    (the 31 Mrows/s killer of the old wide path, BASELINE.md).  Key sets up
+    path and the static LSD passes, with NO per-pass composition gathers.  Key sets up
     to ~128 - rowid bits wide fit; fits=False => caller takes the static
     path."""
     rb = _rbits(n)
@@ -308,8 +304,7 @@ def packed_argsort(lanes: Sequence[tuple[jnp.ndarray, int]], n: int) -> jnp.ndar
     iota = jax.lax.broadcasted_iota(jnp.int64, (n,), 0)
     # pack every group's word BEFORE any permutation: an LSD pass then costs
     # ONE gather (wide[perm]) + one composition gather (perm[idx]) instead of
-    # a gather per lane — TPU random gathers are ~150ms/16M rows, the
-    # dominant cost of multi-pass sorts (BASELINE.md environment truths)
+    # a gather per lane
     packed: list[jnp.ndarray] = []
     for g in groups:                   # least-significant group first (LSD)
         wide = jnp.zeros((n,), dtype=jnp.int64)

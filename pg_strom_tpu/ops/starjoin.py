@@ -4,12 +4,12 @@ The multi-relation device join chain (reference: gpuhashjoin merges
 consecutive joins into one multi-rel kernel — path merge gpuhashjoin.c:789-835,
 probe recursion opencl_hashjoin.h kern_gpuhashjoin_main depths /
 gpuhashjoin.c:1184-1318 — and passes device-resident bulkslots between GPU
-nodes, pg_strom.h:317-329).  TPU-native form: every inner relation is probed
+nodes, pg_strom.h:317-329).  Here every inner relation is probed
 ROW-ALIGNED with the fact chunk, so the joined row set never materializes —
 no chain recursion on device, no intermediate host Table:
 
-  * unique single-int-key inners ("dense"): ONE direct-address / identity /
-    MXU-lookup probe per inner — match mask + one build-row lane.
+  * unique single-int-key inners ("dense"): ONE direct-address or identity
+    probe per inner — match mask + one build-row lane.
   * non-unique or multi-key inners ("multi", round 3): the bounded-fanout
     probe (ops/hashjoin.build_probe_multi_fn) returns up to F build rows
     PER PROBE ROW, still row-aligned.  The fused program then enumerates
@@ -18,7 +18,7 @@ no chain recursion on device, no intermediate host Table:
     the AND of all inner matches, and the grouped partial aggregation runs
     once per slice over the same fact lanes.  Summing partial states over
     slices is exactly the fan-out join semantics (each composite match
-    combination contributes once) — the static-shape TPU replacement for
+    combination contributes once) — the static-shape replacement for
     the reference's dynamic count->reserve->write expansion
     (opencl_hashjoin.h:339-412).
 
@@ -57,7 +57,7 @@ def build_star_join_preagg_fn(pschema: Sequence[ColMeta],
     """f(hts tuple, pcols, bcols_list tuple, nrows, salt) -> out pytree.
 
     dim_specs[i] (dense): {"mode": "dense", "probe_keys": [Expr],
-      "dense_cap": int, "use_mxu": bool, "use_ident": bool, "row_bits": int}
+      "dense_cap": int, "use_ident": bool}
     dim_specs[i] (multi): {"mode": "multi", "probe_keys": [Expr...],
       "key_types": tuple, "max_chain": int, "fanout": int}
 
@@ -80,7 +80,6 @@ def build_star_join_preagg_fn(pschema: Sequence[ColMeta],
         else:
             dfns.append(("dense", src, build_probe_dense_fn(
                 schema_i, list(d["probe_keys"]), d["dense_cap"], pred_i,
-                use_mxu=d["use_mxu"], row_bits=d["row_bits"],
                 use_ident=d.get("use_ident", False))))
     jschema_eff = list(jschema) + [ColMeta("__match__", T.BOOL)]
     match_pred = ColumnRef(type=T.BOOL, name="__match__", index=len(jschema))

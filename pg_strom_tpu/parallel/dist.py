@@ -1,6 +1,6 @@
 """Generalized SPMD distributed join + grouped aggregation.
 
-The engine-integrated distributed layer (BASELINE.md north star; SURVEY §2
+The engine-integrated distributed layer (SURVEY §2
 parallelism row 7).  parallel/shuffle.py carries the original single-shape
 prototype; this module generalizes it to the engine's machinery so the SQL
 planner can route real queries through a device mesh:
@@ -15,14 +15,14 @@ planner can route real queries through a device mesh:
     per-device partial aggregation literally calls ops/preagg._slot_compute,
     so device partials and host finalization share one exactness contract
     (counts are exact int64; int sums keep the modular-int64 + f64-shadow
-    CpuReCheck guard; f64 families inherit the emulated-f64 recheck surface)
+    CpuReCheck guard; f64 families inherit the float8 recheck surface)
   - fixed-capacity phases with per-device overflow flags; the executor
     (exec/dist_exec.py) owns the overflow -> repartition retry loop
 
 One jitted shard_map per (plan signature, capacities): per device —
 
   1. partition probe/build rows into ndev buckets by hash(join key lanes)
-  2. lax.all_to_all both sides over the mesh axis (ICI)
+  2. lax.all_to_all both sides over the mesh axis
   3. local sorted-bucket hash join, ALL key lanes compared per chain step
   4. local partial aggregation of the joined pairs by group-key lanes
      (sort by group hash, segment boundaries by exact lane equality)
@@ -33,7 +33,7 @@ the host merge folds duplicates through ops/preagg.merge_partials.
 
 Reference framing: the reference is single-node (no NCCL/MPI — SURVEY §5
 "distributed communication backend: none"); this layer is the new
-capability the TPU build adds, designed around lax.all_to_all/shard_map
+capability this engine adds, designed around lax.all_to_all/shard_map
 rather than ported.
 """
 
@@ -204,9 +204,9 @@ def _make_exchange(axes, axis, ndev, H, C, bucket_cap):
     heavy-key rows).
 
     1D mesh: one all_to_all.  2D mesh: stage 1 sends each row to its
-    TARGET CHIP within the source host (all_to_all over "chips" — pure
-    ICI); stage 2 sends to the target host along the now-aligned chip
-    column (all_to_all over "hosts" — the only DCN traffic).  Device
+    TARGET CHIP within the source host (all_to_all over "chips" — within
+    a node); stage 2 sends to the target host along the now-aligned chip
+    column (all_to_all over "hosts" — the only inter-node traffic).  Device
     (h, c) ends up with exactly the rows whose part id is h*C + c, so the
     local join/group phases are identical to the flat mesh.  The part
     lane RIDES stage 1 (recomputing it from key hashes would undo
@@ -271,7 +271,7 @@ def build_dist_join_agg_step(mesh: Mesh, sig: DistPlanSig,
         H = C = 0
         BUILD_COUNTS["exchange_flat"] += 1
     else:
-        # 2D hosts x chips: hierarchical two-stage exchange (ICI then DCN)
+        # 2D hosts x chips: hierarchical two-stage exchange (within nodes, then across)
         H, C = mesh.shape[axes[0]], mesh.shape[axes[1]]
         ndev = H * C
         BUILD_COUNTS["exchange_2stage"] += 1
@@ -330,7 +330,7 @@ def build_dist_join_agg_step(mesh: Mesh, sig: DistPlanSig,
                 .astype(jnp.int32)
             bvalid_x = bvalid & ~ish_b     # heavy build rows broadcast
 
-        # ---- 1+2: partition by hash(join keys), exchange (ICI / ICI+DCN)
+        # ---- 1+2: partition by hash(join keys), exchange (flat or two-stage)
         p_all, pva, povf = _exchange(
             tuple(pjk) + tuple(plv) + tuple(plvv), sig.n_probe_jkeys,
             pvalid, part=ppart)
@@ -345,7 +345,7 @@ def build_dist_join_agg_step(mesh: Mesh, sig: DistPlanSig,
 
             def _ag(x):
                 y = x.reshape(-1)
-                for ax in reversed(axes):      # chips (ICI) first
+                for ax in reversed(axes):      # chips (within a node) first
                     y = jax.lax.all_gather(y, ax, tiled=True)
                 return y
 

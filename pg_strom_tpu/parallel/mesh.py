@@ -1,15 +1,16 @@
 """Device mesh construction.
 
 The multi-device scheduling analog (reference round-robin device pick,
-opencl_serv.c:100-106) — except on TPU the mesh is declarative: shardings
+opencl_serv.c:100-106) — except here the mesh is declarative: shardings
 place data, XLA inserts the collectives.  Axis naming conventions:
 
-  dp              — flat data/shuffle parallelism across all chips
-  hosts x chips   — 2D hierarchical mesh (round 3): the shuffle exchange
-                    runs in two stages, all_to_all over "chips" (ICI
-                    within a host) then over "hosts" (DCN), so only the
-                    host-mismatched fraction of rows crosses the slow
-                    inter-host fabric (SURVEY §5 ICI/DCN design note).
+  dp              — flat data/shuffle parallelism across all devices; the
+                    layout for the cards of one machine, which all reach
+                    each other at the same rate
+  hosts x chips   — 2D mesh for a cluster of several nodes: the shuffle
+                    exchange runs in two stages, all_to_all over "chips"
+                    within a node, then over "hosts", so only the rows
+                    bound for another node cross the inter-node network.
 
 `pg_strom.dist_mesh_hosts` > 1 selects the 2D shape; the virtual-device
 test rig exercises it as (2, 4) over 8 CPU devices."""
@@ -41,9 +42,9 @@ def get_mesh(n_devices: int | None = None, axis: str = "dp") -> Mesh:
 def get_mesh2(n_hosts: int, n_chips: int | None = None) -> Mesh:
     """2D ("hosts", "chips") mesh: n_hosts rows of n_chips devices each.
 
-    On real hardware, devices are enumerated host-major (jax.devices()
-    orders by process/host), so row h of the mesh holds host h's chips and
-    the "chips" axis collectives ride ICI while "hosts" crosses DCN."""
+    Devices are enumerated host-major (jax.devices() orders by
+    process/host), so row h of the mesh holds node h's devices: "chips"
+    axis collectives stay within a node and "hosts" crosses nodes."""
     devs = _devices(None)
     if n_chips is None:
         if len(devs) % n_hosts:

@@ -1,7 +1,7 @@
 """SPMD shuffle hash-join + grouped aggregation over a device mesh.
 
 Dataflow of one distributed step (everything inside one jitted shard_map —
-XLA schedules the all_to_alls on ICI and overlaps them with local compute):
+XLA schedules the all_to_alls and overlaps them with local compute):
 
   per device: local probe shard, local build shard
     1. partition: bucket rows by hash(key) mod ndev (sort + searchsorted,
@@ -242,7 +242,7 @@ def build_shuffle_join_agg_step(mesh: Mesh, axis: str = "dp",
             hbp_g = jax.lax.all_gather(hbp_b[0], axis)
             hbv_g = jax.lax.all_gather(hbv_b[0], axis)
 
-        # ---- phase 1+2: partition and exchange both sides over ICI -------
+        # ---- phase 1+2: partition and exchange both sides over the mesh ------
         (pk_b, pv_b), pvalid_b, _, povf = _partition_lanes(
             (pkey, pval), pkey, pvalid, ndev, bucket_cap, part=ppart)
         (bk_b, bp_b), bvalid_b, _, bovf = _partition_lanes(

@@ -1,4 +1,4 @@
-"""Planner: AST binding, logical planning, TPU/host operator placement,
+"""Planner: AST binding, logical planning, device/host operator placement,
 cost model, EXPLAIN.
 
 The analog of the reference's L7 planner integration (gpuscan.c path hooks,

@@ -1,7 +1,7 @@
-"""Cost model: host-vs-TPU plan selection.
+"""Cost model: host-vs-device plan selection.
 
-TPU-native re-creation of the reference's cost functions, driven by the same
-GUC taxonomy (config.tpu_setup_cost / tpu_operator_cost / tpu_tuple_cost vs
+Re-creation of the reference's cost functions, driven by the same
+GUC grouping (config.tpu_setup_cost / tpu_operator_cost / tpu_tuple_cost vs
 the cpu_* / seq_page_cost defaults):
 
   cost_seqscan / cost_tpuscan     reference gpuscan.c:101-231 (cost_gpuscan:
@@ -21,7 +21,7 @@ DEFAULT_INEQ_SEL = 1/3, DEFAULT_RANGE_INEQ_SEL implied by products); we own
 the datastore, so row counts are exact rather than estimated.
 
 The planner (plan/planner.py) compares each Tpu* path against its host twin
-and offloads only when the TPU path is cheaper — unless
+and offloads only when the device path is cheaper — unless
 config.debug_force_offload / debug_force_tpupreagg force the device plan the
 way pg_strom.debug_force_gpupreagg does in the regression conf
 (input/enable.conf; gpupreagg.c:2947+).
@@ -228,8 +228,8 @@ def cost_seqscan(nrows: float, width: int, quals: Sequence[Expr],
 
 def cost_tpuscan(nrows: float, width: int, dev_quals: Sequence[Expr],
                  host_quals: Sequence[Expr], stats=None) -> Cost:
-    """TPU scan (cost_gpuscan, gpuscan.c:101-167): disk cost + setup +
-    device quals at the TPU per-tuple rate + host quals and tuple cost only
+    """Device scan (cost_gpuscan, gpuscan.c:101-167): disk cost + setup +
+    device quals at the device per-tuple rate + host quals and tuple cost only
     on rows the device filter passes."""
     run = config.seq_page_cost * _pages(nrows, width)
     dev_per_tuple = quals_cost_per_tuple(dev_quals)
@@ -267,7 +267,7 @@ def cost_tpuhashjoin(outer: Cost, inners: Sequence[Cost],
                      n_hash_clauses_per_inner: Sequence[int],
                      out_width: int,
                      eq_sels: Sequence[float] | None = None) -> Cost:
-    """TPU hash join (cost_gpuhashjoin, gpuhashjoin.c:438-498): the build
+    """Device hash join (cost_gpuhashjoin, gpuhashjoin.c:438-498): the build
     side is hashed host-side at cpu cost (multihash_preload analog), the
     probe runs on device at tpu_operator_cost per hash clause, plus the
     fixed device setup cost.  N-way: every inner adds its build cost to
@@ -308,7 +308,7 @@ def cost_hostagg(input_cost: Cost, n_aggs: int, n_group_cols: int,
 
 def cost_tpupreagg(input_cost: Cost, n_aggs: int, n_group_cols: int,
                    n_groups: float, out_width: int) -> Cost:
-    """TPU two-phase aggregation (cost_gpupreagg, gpupreagg.c:366-470):
+    """Device two-phase aggregation (cost_gpupreagg, gpupreagg.c:366-470):
     device setup + per-chunk grouping term + per-row device transition cost,
     then host finalization over num_groups * num_chunks partial rows."""
     n_aggs = max(n_aggs, 1)

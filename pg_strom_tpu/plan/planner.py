@@ -488,7 +488,7 @@ def plan_select(stmt: ast.SelectStmt, db: Database) -> PlannedQuery:
 def _plan_costs(rels, shells, sub_plans, per_rel, join_equis, has_outer,
                 bound_ons, joins, has_aggs, group_exprs, n_aggs, out_width,
                 post_join):
-    """Cost every candidate path pair (host vs TPU) and decide offload per
+    """Cost every candidate path pair (host vs device) and decide offload per
     node — the planner half of the reference's cost model (cost_gpuscan
     gpuscan.c:101-231, cost_gpuhashjoin gpuhashjoin.c:438-668,
     cost_gpupreagg gpupreagg.c:366-470).  Forced flags
@@ -1180,7 +1180,9 @@ def _topk_rows_dist(cur: Table, names, schema, specs, bpred, k: int,
     nrows_d = np.clip(n - shard_n * np.arange(ndev, dtype=np.int64),
                       0, shard_n).astype(np.int32)
     with perfmon.timer("dispatch"):
-        out = step(nrows_d, *flat_planes)
+        out = perfmon.device_call("sort_topk_dist", step, nrows_d,
+                                  *flat_planes)
+    perfmon.bump("dist_topk_steps")
     with perfmon.timer("device_wait"):
         out = jax.device_get(out)
     nlanes = len(out) - 4
@@ -1270,7 +1272,8 @@ def _topk_rows(cur: Table, bpred, bitems, borders, k: int,
         if cc.recheck_any:
             return None                # mixed host/device merge: host path
         with perfmon.timer("dispatch"):
-            res = fn(cc.planes, np.int32(cc.nrows))
+            res = perfmon.device_call("sort_topk", fn, cc.planes,
+                                      np.int32(cc.nrows))
         pending.append((cc, res))
         if not planes_on_device(cc.planes):
             streamed += 1
@@ -1291,7 +1294,8 @@ def _topk_rows(cur: Table, bpred, bitems, borders, k: int,
                                               min(k, cap), exact=True))
             _SCAN_JIT[ekey] = efn
         with perfmon.timer("dispatch"):
-            r = efn(cc.planes, np.int32(cc.nrows))
+            r = perfmon.device_call("sort_topk", efn, cc.planes,
+                                    np.int32(cc.nrows))
         with perfmon.timer("device_wait"):
             return fetch_host([r])[0]
 

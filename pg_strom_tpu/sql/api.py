@@ -39,8 +39,6 @@ _GUC_MAP = {
     "pg_strom.min_async_chunks": "min_async_chunks",
     "pg_strom.max_async_chunks": "max_async_chunks",
     "pg_strom.distributed": "distributed",
-    "pg_strom.preagg_int8": "use_preagg_int8",
-    "pg_strom.warmup_async": "warmup_async",
 }
 
 

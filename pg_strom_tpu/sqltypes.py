@@ -1,10 +1,10 @@
 """SQL type system.
 
-TPU-native analog of the reference's device type catalog (codegen.c:46-78:
+Analog of the reference's device type catalog (codegen.c:46-78:
 bool/int2/int4/int8/float4/float8/date/time/timestamp/bpchar/numeric/bytea/text)
 and the pg_<type>_t NULL-carrying wrappers (codegen.c:632-861).
 
-Storage model (struct-of-arrays, the TPU-idiomatic replacement for the
+Storage model (struct-of-arrays, the XLA-idiomatic replacement for the
 reference's kern_data_store row formats, opencl_common.h:276-434):
 
   every column chunk = (data ndarray[s], valid bool ndarray)

@@ -1,7 +1,7 @@
 """Engine-integrated distributed execution (exec/dist_exec.py +
 parallel/dist.py) on the 8-device virtual CPU mesh.
 
-The contract (BASELINE.md north star / VERDICT round-1 item 1): real SQL
+The contract: real SQL
 join+GROUP BY queries run through the planner on the mesh behind
 pg_strom.distributed and match the single-device (host-exact) results,
 including the overflow -> repartition ladder (the distributed analog of
@@ -756,7 +756,7 @@ def test_resident_sharded_lanes_reused():
 @pytest.mark.skipif(not _mesh_ready(), reason="needs a multi-device mesh")
 class TestHierarchicalMesh:
     """2D hosts x chips mesh (round-3 item 6): the shuffle exchange runs
-    all_to_all over "chips" (ICI) then "hosts" (DCN); results must match
+    all_to_all over "chips" then "hosts"; results must match
     the flat mesh and the host tier exactly."""
 
     def _db(self):
@@ -818,7 +818,7 @@ class TestHierarchicalMesh:
 
     def test_2d_distinct_aggregate(self):
         """agg(DISTINCT x) over the hosts x chips mesh: the dedup exchange
-        rides the two-stage ICI/DCN path."""
+        rides the two-stage exchange path."""
         db = self._db()
         q = ("select hf.k, count(distinct hf.q), count(*) from hf "
              "group by hf.k order by hf.k")

@@ -313,3 +313,40 @@ class TestDenseIdentity:
         assert not self._ident_flag(build)
         # the probe of key 10 must NOT match anything
         assert run_join(probe, build, True) == run_join(probe, build, False)
+
+
+@pytest.mark.parametrize("D,bits", [(100, 8), (2048, 12), (40960, 12),
+                                    (65536, 16), (5000, 32)])
+def test_dense_probe_gather(rng, D, bits):
+    """The dense probe's plain gather ht['dense'][slot] over a unique but
+    non-identity build (a permuted key window based at 2^bits): every
+    probe row finds exactly its build row, out-of-window and NULL keys
+    match nothing."""
+    import jax
+    from pg_strom_tpu.expr.lower_jax import ColMeta
+    from pg_strom_tpu.ops.hashjoin import (
+        build_hash_table, build_probe_dense_fn, dense_cap_for)
+    kt, dt = (T.INT8, np.int64) if bits > 16 else (T.INT4, np.int32)
+    base = 1 << bits
+    bkeys = (rng.permutation(D) + base).astype(dt)
+    ncap = 1 << max(D - 1, 1).bit_length()
+    bdata = np.zeros(ncap, dt)
+    bdata[:D] = bkeys
+    bcols = ((bdata, np.arange(ncap) < D),)
+    key = ColumnRef(type=kt, name="k", index=0)
+    ht = jax.jit(build_hash_table([ColMeta("k", kt)], [key]))(
+        bcols, np.int32(D))
+    assert bool(ht["dense_ok"]) and not bool(ht["dense_ident"])
+    n = 10_000
+    pkeys = (rng.integers(-3, D + 3, n) + base).astype(dt)
+    pvalid = rng.random(n) > 0.05
+    probe = jax.jit(build_probe_dense_fn([ColMeta("k", kt)], [key],
+                                         dense_cap_for(ncap)))
+    matched, brow, nout, err = jax.device_get(
+        probe(ht, ((pkeys, pvalid),), np.int32(n)))
+    pos = {int(k): i for i, k in enumerate(bkeys)}
+    want = np.array([pos.get(int(k), -1) if v else -1
+                     for k, v in zip(pkeys, pvalid)])
+    np.testing.assert_array_equal(matched, want >= 0)
+    np.testing.assert_array_equal(brow[want >= 0], want[want >= 0])
+    assert int(nout) == int((want >= 0).sum()) and int(err) == 0

@@ -159,12 +159,15 @@ def test_pregrouped_group_expr_and_pred(db):
              "group by dim.w % 3 order by dim.w % 3")
 
 
-def test_pregrouped_vs_generic_same_result(db):
+def test_pregrouped_vs_generic_same_result(db, monkeypatch):
     q = ("select dim.lab, count(*), sum(fact.y) from fact "
          "join dim on fact.k = dim.k group by dim.lab order by dim.lab")
     with override(enabled=True, chunk_rows=512):
         a = execute(q, db).formatted(-3)
-    with override(enabled=True, chunk_rows=512, join_mxu_lookup=False):
+    from pg_strom_tpu.exec.joinagg_exec import JoinPreAggExecutor
+    monkeypatch.setattr(JoinPreAggExecutor, "_compose_pregroup",
+                        lambda self, *args: None)
+    with override(enabled=True, chunk_rows=512):
         b = execute(q, db).formatted(-3)   # generic dense path, no pregroup
     assert a == b
 

@@ -165,8 +165,8 @@ class TestZeroAgg:
                           ("float_x", T.FLOAT8), ("real_x", T.FLOAT4)])
 @pytest.mark.parametrize("aggname", ["sum", "avg", "max", "min", "count"])
 class TestOverflowAgg:
-    """Extreme magnitudes: int64-max sums, 1e308 float8 (beyond the TPU
-    emulated-f64 window), 21-digit numerics — must still match host exactly
+    """Extreme magnitudes: int64-max sums, 1e308 float8 (beyond the
+    f32-exponent window of the device's f64 sums), 21-digit numerics — must still match host exactly
     via the CpuReCheck tier."""
 
     def test_overflow_group(self, aggname, colname, coltype, tbl_overflow):

@@ -1,4 +1,4 @@
-"""MXU (one-hot matmul) grouped-aggregation primitives: exactness vs numpy.
+"""Limb-matrix grouped-aggregation primitives: exactness vs numpy.
 
 Covers the full round trip: recipe walk -> device column build -> segmented
 bf16 matmul reduce -> host big-int extraction, plus the key-recovery /
@@ -29,11 +29,10 @@ def _run(key_vals, key_types, aggs, arg_vals, arg_types, seg_id, G, n):
 
     def f():
         V, exps = build_mxu_columns(key_vals, aggs, arg_vals, mask, n)
-        # force the bf16 one-hot matmul branch (CPU would otherwise take the
-        # exact segment-sum shortcut) — these tests exist to prove the MXU
-        # path's exactness claims
+        # the bf16 one-hot dot formulation (the CPU would otherwise take
+        # the segment sum) — these tests prove its exactness claims
         sums, fsums = mxu_reduce(V, jnp.asarray(seg_id), G, n,
-                                 force_matmul=True,
+                                 route="onehot_dot",
                                  fsum_cols=mxu_shadow_cols(slotr))
         return {"mxu_sums": sums, "mxu_fsums": fsums, "mxu_f4exps": exps}
 
@@ -209,8 +208,8 @@ class TestMxuPrimitives:
 
 @pytest.fixture(autouse=True)
 def _enable_f64_blocks(monkeypatch):
-    """f64 double-float blocks are TPU-only in production (CPU keeps the
-    cheap scatter slots); these unit tests exercise them explicitly."""
+    """f64 double-float blocks are the GPU's route in production (the CPU
+    keeps the f64 segment sums); these unit tests exercise them here."""
     from pg_strom_tpu.ops import preagg_mxu
     monkeypatch.setattr(preagg_mxu, "F64_BLOCKS_ON_CPU", True)
     yield

@@ -1,8 +1,8 @@
 """Parity harness: run the reference's regression SQL against pg_strom_tpu
 and diff against the reference's own expected/*.out goldens.
 
-This is the strongest possible correctness check (BASELINE.md: "exact-match
-results on the reference agg/join regression suite"): the fixture data is
+This is the strongest possible correctness check (exact-match results on
+the reference agg/join regression suite): the fixture data is
 regenerated bit-exactly from PostgreSQL's PRNG (models/pg_fixture.py), the
 reference SQL files are executed as-is, and every output value must match
 the golden .out text character-for-character.
@@ -98,12 +98,15 @@ def parse_expected(path: str):
 
 
 def run_parity(names: list[str], max_diffs: int = 10,
-               use_reference_fixture: bool = True, tpu: bool = False):
+               use_reference_fixture: bool = True, gpu: bool = False):
     import jax
-    if not tpu:
+    if not gpu:
         jax.config.update("jax_platforms", "cpu")
     else:
-        print("running on:", jax.devices()[0], flush=True)
+        dev = jax.devices()[0]
+        if dev.platform != "gpu":
+            raise SystemExit(f"--gpu: no GPU, JAX found {dev.platform!r}")
+        print("running on:", dev, flush=True)
     from pg_strom_tpu.datastore import Database
     from pg_strom_tpu.models.pg_fixture import (
         regen_preagg_test, regen_preagg_overflow, regen_preagg_mix)
@@ -197,8 +200,8 @@ if __name__ == "__main__":
                     default=["nogrp_agg", "zero_agg", "where_agg",
                              "group_agg", "overflow_agg", "recheck_agg"])
     ap.add_argument("--max-diffs", type=int, default=10)
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the default (live TPU) backend instead "
-                         "of forcing CPU")
+    ap.add_argument("--gpu", action="store_true",
+                    help="run on the GPU (fails without one) instead of "
+                         "forcing CPU")
     args = ap.parse_args()
-    run_parity(args.suites or None, args.max_diffs, tpu=args.tpu)
+    run_parity(args.suites or None, args.max_diffs, gpu=args.gpu)
